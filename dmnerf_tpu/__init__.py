@@ -1,14 +1,12 @@
-"""dmnerf_tpu — a TPU-native (JAX/XLA/Pallas/pjit) framework for decompose-and-manipulate
-NeRF scene understanding, providing the full capability surface of DM-NeRF
-(reference: ChenLu-china/DM-NeRF) re-designed TPU-first.
+"""dmnerf_tpu — a JAX/XLA framework for decompose-and-manipulate NeRF scene
+understanding, providing the full capability surface of DM-NeRF
+(reference: ChenLu-china/DM-NeRF), run on NVIDIA GPUs.
 
 Layer map (mirrors SURVEY.md §1, re-architected):
 
   core/      pure-jnp math: positional encoding, DM-NeRF MLP (pytree params),
              ray generation, stratified + inverse-CDF samplers, volume compositor,
              coarse→fine render pipeline. All shape-static, jit-able.
-  kernels/   Pallas TPU kernels for the hot path (fused MLP) with a pure-XLA
-             fallback exposing the same API.
   objfield/  the "object field" instance machinery: in-graph Hungarian assignment,
              instance losses, emptiness penalizer, mAP evaluator.
   render/    jitted train step, chunked full-image renderer, manipulator.

@@ -16,8 +16,8 @@ Behavioral parity with the reference train/test compositor
 manipulator's variant (/root/reference/networks/manipulator.py:86-110), which keeps
 the air channel and uses non-detached weights (it runs under no-grad anyway).
 
-TPU-first notes: the exclusive cumprod of transmittance is expressed as
-exp(cumsum(log1p(-alpha + eps))) — an associative scan XLA parallelizes on the VPU,
+Design note: the exclusive cumprod of transmittance is expressed as
+exp(cumsum(log1p(-alpha + eps))) — an associative scan XLA parallelizes,
 numerically identical to cumprod up to float round-off but differentiable in one
 fused pass; a flag keeps literal-cumprod semantics for bit-parity testing.
 """
@@ -88,17 +88,14 @@ def composite(
 def composite_maps(raw, z_vals, rays_d, keep_air: bool = False):
     """Forward-only fast path when rgb, depth AND ins are all consumed: ONE
     weighted reduction over the channel-concat [sigmoid(rgb) | z | ins_logits]
-    instead of three separate [N,S,C] reductions — measured −8 ms per 256²
-    image on v5e (scripts/dev/composite_probe2.py); per-channel math identical
+    instead of three separate [N,S,C] reductions; per-channel math identical
     to composite() (same reference render.py:6-28 / manipulator.py:86-110
     semantics — the ins weight detach is irrelevant with no gradient path, and
     the air-drop slice commutes with the elementwise sigmoid).
 
     Returns (rgb [N,3], ins [N, C(-1 if not keep_air)], depth [N]). Used by the
     image renderer (keep_air=False) and the manipulator's final composite
-    (keep_air=True). NOTE: batched-matvec (einsum) and in-Pallas epilogue
-    formulations of this reduction both measured SLOWER — see docs/PERF.md
-    dead ends."""
+    (keep_air=True)."""
     w = composite(raw, z_vals, rays_d, keep_air=True,
                   detach_ins_weights=False).weights  # XLA DCEs the unused maps
     vals = jnp.concatenate(

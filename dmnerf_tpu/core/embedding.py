@@ -1,4 +1,4 @@
-"""NeRF sin/cos positional encoding, TPU-first.
+"""NeRF sin/cos positional encoding.
 
 Behavioral parity with the reference Embedder (/root/reference/networks/dm_nerf.py:8-55):
 identity passthrough + per-frequency [sin, cos] at log-spaced frequencies

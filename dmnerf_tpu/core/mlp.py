@@ -15,9 +15,9 @@ Architecture parity with the reference DM_NeRF module
            Linear(W/2 -> ins_num+1)  [+1 = the "air"/emptiness channel].
   output:  concat [rgb(3), density(1), ins(ins_num+1)]  -> raw [..., 4+ins_num+1].
 
-TPU-first design notes:
+Design notes:
  * parameters are a flat dict of [in, out] matrices so every layer is a single
-   row-major matmul that XLA tiles directly onto the MXU;
+   row-major [rows, in] x [in, out] matmul (a plain GEMM for XLA / cuBLAS);
  * the apply function is shape-polymorphic over leading dims and dtype-polymorphic
    (bf16 perf mode casts inputs/params; accumulation stays f32 via
    preferred_element_type);
@@ -116,15 +116,13 @@ def rgb_stub_params(params: Params, stub_w: int = 8) -> Params:
     For forward-only consumers that need sigma + ins but not color: the
     manipulator's pass-1 label accumulation reads only the accumulated instance
     logits, and its exchanged-coarse weight recomputation reads only sigma
-    (reference manipulator.py:137-160) — the rgb branch is dead weight the
-    Pallas kernel would otherwise execute (~14% of per-point MXU work
-    pre-head-fusion, less but still nonzero after the r5 head algebra fusion)
-    (XLA DCE cannot reach inside a pallas_call). Sigma and ins outputs are
-    EXACT by per-column matmul independence (same argument as
-    sigma_stub_params); the rgb channels of the result are garbage and must not
-    be consumed. `stub_w` must be a multiple of 8 (f32 sublane tile) so the
-    fused-operand row padding stays aligned."""
-    assert stub_w % 8 == 0, f"stub_w must be a multiple of 8 (f32 sublane tile), got {stub_w}"
+    (reference manipulator.py:137-160). The stubbed pytree drops the rgb
+    branch's matmuls from the query whatever the compiler's dead-code
+    elimination does. The sigma and ins channels are computed by the same
+    trunk/density/ins matmuls as with the full pytree; they agree with it up to
+    the matmul library's choice of algorithm for the differently shaped graph
+    (bit-equal on the CPU backend, tests/test_query.py). The rgb channels of the
+    result are garbage and must not be consumed."""
     W, zeros = params["density_w"].shape[0], jnp.zeros
     dtype = params["density_w"].dtype
     emb_views = params["rgb_hid_w"].shape[0] - params["rgb_feat_w"].shape[1]
@@ -142,18 +140,15 @@ def sigma_stub_params(params: Params, stub_w: int = 8) -> Params:
     """Shrink the rgb/ins head branches to `stub_w`-wide zero weights, keeping the
     trunk and density head intact.
 
-    Why: forward-only consumers that need ONLY sigma (the test renderer's coarse
-    pass exists solely to produce `sample_pdf` weights — reference render.py:62-68
-    via tester.py:62-76) still pay the full head stack through the fused Pallas
-    kernel, where XLA's dead-code elimination cannot reach. Both query paths are
-    shape-driven, so swapping in this pytree removes the whole head branch MXU
-    work (~25% per-point pre-head-fusion, less after the r5 head algebra
-    fusion); the sigma column is EXACT (each output column of a matmul is an
-    independent dot product — and the fused M1's density column is the same
-    matmul column), while the rgb/ins channels of the result are
-    garbage and must not be consumed. `stub_w` must be a multiple of 8 (f32
-    sublane tile) so the fused-operand row padding stays aligned."""
-    assert stub_w % 8 == 0, f"stub_w must be a multiple of 8 (f32 sublane tile), got {stub_w}"
+    For forward-only consumers that need ONLY sigma (the test renderer's coarse
+    pass exists solely to produce `sample_pdf` weights — reference
+    render.py:62-68 via tester.py:62-76 — and the mesh sigma sweep). The stubbed
+    pytree drops the head branches' matmuls from the query whatever the
+    compiler's dead-code elimination does. The sigma column comes from the same
+    trunk and density matmuls as with the full pytree; it agrees with it up to
+    the matmul library's choice of algorithm for the differently shaped graph
+    (bit-equal on the CPU backend, tests/test_query.py). The rgb/ins channels of
+    the result are garbage and must not be consumed."""
     W, zeros = params["density_w"].shape[0], jnp.zeros
     dtype = params["density_w"].dtype
     emb_views = params["rgb_hid_w"].shape[0] - params["rgb_feat_w"].shape[1]

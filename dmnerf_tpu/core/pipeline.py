@@ -13,10 +13,9 @@ The ScanNet-only suffix slicing of instance maps to the last N_ins rays
 responsibility here — N_ins is a static per-config constant, and slicing a returned
 array keeps this function shape-stable for jit.
 
-TPU-first notes: points are kept in [N_rays, S, 3] layout; the MLP consumes the
-flattened [N_rays*S, C] batch as one MXU matmul chain per layer. The query function is
-pluggable so the Pallas fused kernel (dmnerf_tpu.kernels) and the pure-XLA path are
-interchangeable, including under vmap/shard_map.
+Points are kept in [N_rays, S, 3] layout; the MLP consumes them as one batch of
+N_rays*S rows per matmul. The query function is a parameter so callers can pass a
+wrapped query (e.g. a stubbed-head one) or a test double.
 """
 
 from __future__ import annotations
@@ -47,40 +46,10 @@ def make_xla_query_fn(multires: int = 10, multires_views: int = 4, D: int = 8, s
     return query
 
 
-def make_query_fn(cfg, mesh=None) -> QueryFn:
-    """Config-driven dispatch: the fused Pallas kernel on TPU (cfg.use_pallas, the
-    default), the pure-XLA path everywhere else (CPU tests, i_embed=-1 identity
-    embedding). Both are drop-in interchangeable (tests/test_kernels.py).
-
-    mesh: pass the data mesh when the query runs inside a sharded (pjit) step —
-    GSPMD cannot partition a pallas_call, so the kernel is shard_map'ed over the ray
-    axis (see kernels.fused_mlp). The XLA path ignores it (GSPMD handles it)."""
-    import jax as _jax
-
-    # the execution platform is the mesh's (sharded steps may target a virtual CPU
-    # mesh) or the default DEVICE's (tests pin jax_default_device=cpu while the TPU
-    # plugin stays registered, so default_backend() alone would lie)
-    _dev = _jax.config.jax_default_device
-    if mesh is not None:
-        platform = next(iter(mesh.devices.flat)).platform
-    elif _dev is not None:
-        # jax_default_device accepts a Device object or a platform string
-        platform = _dev if isinstance(_dev, str) else _dev.platform
-    else:
-        platform = _jax.default_backend()
-    if cfg.use_pallas and cfg.i_embed == 0 and cfg.multires > 0 and cfg.multires_views > 0 \
-            and platform == "tpu":
-        from dmnerf_tpu.kernels.fused_mlp import make_pallas_query_fn
-
-        kw = {}
-        if cfg.pallas_pe_mode is not None:
-            kw["pe_mode"] = cfg.pallas_pe_mode
-        if cfg.pallas_tile_fwd is not None:
-            kw["tile_fwd"] = cfg.pallas_tile_fwd
-        if cfg.pallas_tile_bwd is not None:
-            kw["tile_bwd"] = cfg.pallas_tile_bwd
-        return make_pallas_query_fn(cfg.multires, cfg.multires_views, cfg.netdepth,
-                                    tuple(cfg.skips), mesh=mesh, **kw)
+def make_query_fn(cfg) -> QueryFn:
+    """The point query a config asks for: PE (or the identity embedding for
+    i_embed=-1) + MLP as plain XLA ops. Under a mesh-jitted step GSPMD partitions
+    it over the ray axis like any other op."""
     mr = cfg.multires if cfg.i_embed == 0 else -1
     mrv = cfg.multires_views if cfg.i_embed == 0 else -1
     return make_xla_query_fn(mr, mrv, cfg.netdepth, tuple(cfg.skips))

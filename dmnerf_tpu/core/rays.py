@@ -9,7 +9,7 @@ Behavioral parity with the reference ray helpers
    (loader_dmsr.py:172) so the same code serves all three datasets.
  * ``rays_from_focal`` == reference get_rays: dirs = [(i-(W-1)/2)/f, (j-(H-1)/2)/f, 1].
 
-TPU-first difference: the reference materializes a full HxW ray grid and then gathers
+Difference: the reference materializes a full HxW ray grid and then gathers
 the sampled pixels (helpers.py:99-111). Here ``rays_for_pixels`` computes rays only for
 the selected pixel coordinates — a [N,3] fused expression with no HxW intermediate and
 no host round trip, so the train step's ray generation is bandwidth-free.

@@ -7,14 +7,13 @@ Behavioral parity:
  * ``sample_pdf``    == reference helpers.py:123-155 — +1e-5 weight floor, cdf with
    leading zero, right-searchsorted, clamped gather, denom<1e-5 -> 1 guard, lerp.
 
-TPU-first notes: the searchsorted + 4x take_along_axis of the reference is replaced
-by a branchless rank-by-comparison + one-hot contraction. Binary search and gathers
-serialize terribly on the VPU (measured: 51 ms/call for [3072 x 128-from-63] on v5e,
-dominating the whole forward); counting ``cdf <= u`` over the bin axis and contracting
-one-hot masks against cdf/bins is pure vectorized compare+reduce work that XLA fuses
-(same call: < 2 ms). The rank equals searchsorted(side="right") exactly, ties included,
-because cdf is non-decreasing. Everything is static-shape; RNG is threaded jax.random
-keys (the reference used impure global torch RNG).
+Design note: the searchsorted + 4x take_along_axis of the reference is replaced by a
+branchless rank-by-comparison + one-hot contraction: counting ``cdf <= u`` over the
+bin axis and contracting one-hot masks against cdf/bins is vectorized compare+reduce
+work that XLA fuses. Whether it beats searchsorted/take_along_axis on a GPU is not
+measured yet (ROADMAP). The rank equals searchsorted(side="right") exactly, ties
+included, because cdf is non-decreasing. Everything is static-shape; RNG is threaded
+jax.random keys (the reference used impure global torch RNG).
 """
 
 from __future__ import annotations

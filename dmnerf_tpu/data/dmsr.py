@@ -22,13 +22,13 @@ from typing import List
 import numpy as np
 
 from dmnerf_tpu.configs import Config
+from dmnerf_tpu.data.hdf5 import read_dataset
 from dmnerf_tpu.data.scene import SceneData
+from dmnerf_tpu.utils.image_io import imread
 
 
 def _read_image(path: str) -> np.ndarray:
-    import imageio.v2 as imageio
-
-    return np.asarray(imageio.imread(path))
+    return imread(path)
 
 
 def _sorted_files(d: str) -> List[str]:
@@ -71,10 +71,7 @@ def _load_split(basedir: str, split: str, skip: int):
 
 
 def load_palette(basedir: str) -> np.ndarray:
-    import h5py
-
-    with h5py.File(os.path.join(basedir, "ins_rgb.hdf5"), "r") as f:
-        return f["datasets"][:]
+    return read_dataset(os.path.join(basedir, "ins_rgb.hdf5"), "datasets")
 
 
 def load_dmsr(cfg: Config) -> SceneData:

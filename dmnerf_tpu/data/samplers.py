@@ -13,7 +13,7 @@ Behavioral parity:
    N_ins is static: int(N_train * 0.3) (helpers.py:65) — the reference's dynamic
    clamp to len(ins_index) becomes a padding mask, keeping the step shape-stable.
 
-TPU-first design: the reference materializes the full HxW ray grid per step and
+Design: the reference materializes the full HxW ray grid per step and
 gathers on it after a host-side np.random.choice (helpers.py:102-108). Here the whole
 sampler is jit-ed device code: pixel ids are drawn with jax.random (threaded keys),
 and rays are computed ONLY for the selected pixels (core.rays.rays_for_pixels), so per

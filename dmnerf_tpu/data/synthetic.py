@@ -94,8 +94,8 @@ def write_dmsr_scene(
     mani_modes: Optional[list] = None,
 ):
     """Writes a DM-SR-format scene; returns the spec. ins_num >= n_objects + 1."""
-    import h5py
-    import imageio.v2 as imageio
+    from dmnerf_tpu.data.hdf5 import write_dataset
+    from dmnerf_tpu.utils.image_io import imwrite
 
     spec = default_spec(n_objects, seed)
     focal = float(W)  # ~53deg fov
@@ -118,16 +118,15 @@ def write_dmsr_scene(
         frames = []
         for t, c2w in enumerate(poses_for(count, phase)):
             rgb, label = render_view(c2w, H, W, K, spec)
-            imageio.imwrite(os.path.join(rgb_dir, f"{t:04d}.png"), (rgb * 255).astype(np.uint8))
-            imageio.imwrite(os.path.join(ins_dir, f"{t:04d}.png"), label.astype(np.uint8))
+            imwrite(os.path.join(rgb_dir, f"{t:04d}.png"), (rgb * 255).astype(np.uint8))
+            imwrite(os.path.join(ins_dir, f"{t:04d}.png"), label.astype(np.uint8))
             frames.append({"transform_matrix": c2w.tolist()})
         with open(os.path.join(out_dir, split, "transforms.json"), "w") as f:
             json.dump({"camera_angle_x": float(angle_x), "frames": frames}, f)
 
     rng = np.random.RandomState(seed + 1)
     palette = rng.randint(0, 255, size=(ins_num, 3)).astype(np.uint8)
-    with h5py.File(os.path.join(out_dir, "ins_rgb.hdf5"), "w") as f:
-        f.create_dataset("datasets", data=palette)
+    write_dataset(os.path.join(out_dir, "ins_rgb.hdf5"), palette)
 
     objs = [
         {
@@ -183,8 +182,8 @@ def write_replica_scene(
     write_scannet_scene (see its docstring for the failure mode this
     prevents).
     """
-    import h5py
-    import imageio.v2 as imageio
+    from dmnerf_tpu.data.hdf5 import write_dataset
+    from dmnerf_tpu.utils.image_io import imwrite
 
     spec = default_spec(n_objects, seed)
     focal = W / 2.0
@@ -217,14 +216,13 @@ def write_replica_scene(
     os.makedirs(ins_dir, exist_ok=True)
     for i in sorted(set(train_ids) | set(read_test_ids)):
         rgb, label = render_view(poses[i], H, W, K_render, spec)
-        imageio.imwrite(os.path.join(rgb_dir, f"rgb_{i}.png"), (rgb * 255).astype(np.uint8))
-        imageio.imwrite(os.path.join(ins_dir, f"semantic_instance_{i}.png"),
+        imwrite(os.path.join(rgb_dir, f"rgb_{i}.png"), (rgb * 255).astype(np.uint8))
+        imwrite(os.path.join(ins_dir, f"semantic_instance_{i}.png"),
                         label.astype(np.uint8))
 
     rng = np.random.RandomState(seed + 1)
     palette = rng.randint(0, 255, size=(ins_num, 3)).astype(np.uint8)
-    with h5py.File(os.path.join(out_dir, "ins_rgb.hdf5"), "w") as f:
-        f.create_dataset("datasets", data=palette)
+    write_dataset(os.path.join(out_dir, "ins_rgb.hdf5"), palette)
 
     if with_objs_info:
         objs = [{"obj_name": f"sphere_{k}", "tar_id": k + 1, "mani_mode": "translation",
@@ -265,8 +263,8 @@ def write_scannet_scene(
     pixels (caught on the first on-chip ScanNet cycle, r5: train-batch PSNR
     rose but held-out views sat at ~14 dB).
     """
-    import h5py
-    import imageio.v2 as imageio
+    from dmnerf_tpu.data.hdf5 import write_dataset
+    from dmnerf_tpu.utils.image_io import imwrite
 
     spec = default_spec(n_objects, seed)
     focal = float(W)
@@ -303,15 +301,14 @@ def write_scannet_scene(
             raw = label.astype(np.int32) - 1
             drop = rng.rand(H, W) < unlabeled_frac
             raw[drop] = -1
-            imageio.imwrite(os.path.join(img_dir, f"{i}.jpg"), (rgb * 255).astype(np.uint8))
+            imwrite(os.path.join(img_dir, f"{i}.jpg"), (rgb * 255).astype(np.uint8))
             # save the OpenCV-convention pose (see docstring): blender -> cv
             c2w_cv = c2w @ np.diag([1.0, -1.0, -1.0, 1.0]).astype(np.float32)
             np.savetxt(os.path.join(pose_dir, f"{i}.txt"), c2w_cv)
             np.savez(os.path.join(ins_dir, f"{i}.npz"), ins_2d_label_id=raw)
 
     palette = rng.randint(0, 255, size=(n_objects + 4, 3)).astype(np.uint8)
-    with h5py.File(os.path.join(out_dir, "ins_rgb.hdf5"), "w") as f:
-        f.create_dataset("datasets", data=palette)
+    write_dataset(os.path.join(out_dir, "ins_rgb.hdf5"), palette)
     return spec
 
 
@@ -319,7 +316,7 @@ def _write_mani_gt(out_dir, spec, H, W, K, n_test, modes):
     """Manipulated-GT folders in the loader_dmsr_mani layout
     (indoor_{mode}_test/{rgbs, semantic_instance}); the GT is re-rendered with the
     object transform applied to the scene spec."""
-    import imageio.v2 as imageio
+    from dmnerf_tpu.utils.image_io import imwrite
 
     with open(os.path.join(out_dir, "test", "transforms.json")) as f:
         meta = json.load(f)
@@ -341,7 +338,7 @@ def _write_mani_gt(out_dir, spec, H, W, K, n_test, modes):
         for t, fr in enumerate(meta["frames"]):
             c2w = np.array(fr["transform_matrix"], np.float32)
             rgb, label = render_view(c2w, H, W, K, spec2)
-            imageio.imwrite(os.path.join(root, "rgbs", f"{t:04d}.png"), (rgb * 255).astype(np.uint8))
-            imageio.imwrite(
+            imwrite(os.path.join(root, "rgbs", f"{t:04d}.png"), (rgb * 255).astype(np.uint8))
+            imwrite(
                 os.path.join(root, "semantic_instance", f"{t:04d}.png"), label.astype(np.uint8)
             )

@@ -33,16 +33,13 @@ def _augmenting_path_step(cost, u, v, row4col, col4row, cur_row):
     ar = jnp.arange(n)
 
     # Both inner loops are iteration-bounded: Dijkstra scans at most n columns and the
-    # augmenting walk has at most n edges. The bound matters on TPU — a non-finite cost
-    # (upstream NaN) could otherwise stall the free-column search forever and trip the
-    # device watchdog; with the bound, bad inputs degrade to a wrong-but-finite
-    # assignment instead of a chip kill.
+    # augmenting walk has at most n edges. A non-finite cost (upstream NaN) could
+    # otherwise stall the free-column search forever and hang the device; with the
+    # bound, bad inputs degrade to a wrong-but-finite assignment.
     #
-    # Latency discipline: the whole solve is serialized while_loop latency, so the
-    # body avoids every scatter (`at[].set` lowers to dynamic-update-slice) and
-    # dynamic gather — masked `where`/reduce over the full [n] vector is cheaper
-    # per iteration on the VPU (measured ~1.8x at the typical valid=8,
-    # scripts/dev/jv_probe.py).
+    # The whole solve is serialized while_loop latency; the bodies use masked
+    # `where`/reduce over the full [n] vector instead of scatters (`at[].set`) and
+    # dynamic gathers.
     def dij_cond(s):
         return (s[6] < 0) & (s[7] <= n)
 
@@ -125,9 +122,9 @@ def masked_assignment(cost: jnp.ndarray, valid_rows: jnp.ndarray) -> jnp.ndarray
 
     The augmenting-path loop runs only ``valid_rows`` times (dynamic trip count,
     static shapes) — exactly the reference's rectangular [valid, n] solve
-    (evaluator.py:41-52). This is the hot-loop win: the solver is serialized
-    lax.while_loop latency (~4 ms/step at n=33 in the fused train step), and a
-    typical batch sees ~8 instances, so 33 -> valid outer iterations is ~4x.
+    (evaluator.py:41-52). The solver is serialized lax.while_loop latency and a
+    typical batch sees ~8 instances, so 33 -> valid outer iterations cuts the
+    loop count ~4x.
     Rows >= valid_rows are column-indifferent padding: they take the leftover
     columns in index order, which matches the reference's "unmapped columns
     appended" semantics — only the *set* of unmatched columns is ever consumed

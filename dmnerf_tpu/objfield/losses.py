@@ -9,11 +9,11 @@ Behavioral parity with /root/reference/networks/evaluator.py:
    solves it under no_grad on the CPU); gradients flow through the matched cost
    entries only.
 
-TPU-first design:
+Design:
  * the reference's dynamic ``torch.unique`` + fancy-indexed one-hot (evaluator.py:21-25)
    becomes a static-shape rank-compaction: presence scatter -> cumsum ranks -> one_hot.
  * both cost matrices are computed as two [C, N] x [N, C] matmuls (BCE) plus one for TP
-   (soft-IoU) — MXU work instead of the reference's [C, C, N] broadcast materialization.
+   (soft-IoU) — matmuls instead of the reference's [C, C, N] broadcast materialization.
  * assignment runs in-graph (see dmnerf_tpu.objfield.hungarian) — no host sync.
 """
 

@@ -38,7 +38,13 @@ def _lsa_rect(cost: np.ndarray) -> np.ndarray:
     r, c = cost.shape
     sq = np.zeros((c, c), np.float32)
     sq[:r] = cost
-    with jax.default_device(jax.local_devices(backend="cpu")[0]):
+    # the solve is a short serial loop on a tiny matrix: run it on the host CPU
+    # backend where one is registered (JAX_PLATFORMS may list only the GPU)
+    try:
+        device = jax.local_devices(backend="cpu")[0]
+    except RuntimeError:
+        device = None
+    with jax.default_device(device):
         col4row = np.asarray(linear_sum_assignment_jax(sq))
     return col4row[:r]
 

@@ -24,14 +24,9 @@ from dmnerf_tpu.core.rays import rays_from_K
 from dmnerf_tpu.objfield.metrics import compact_gt_one_hot_np, ins_eval
 from dmnerf_tpu.render.renderer import make_image_renderer
 from dmnerf_tpu.tools.visualizer import render_gt_label2img, render_label2img
+from dmnerf_tpu.utils.image_io import imwrite
 from dmnerf_tpu.utils.image_metrics import lpips_np, psnr_np, ssim_np, to8b
 from dmnerf_tpu.utils.metrics_log import write_matching_log, write_test_results
-
-
-def _imwrite(path: str, img: np.ndarray) -> None:
-    import imageio.v2 as imageio
-
-    imageio.imwrite(path, img)
 
 
 def render_test(
@@ -129,15 +124,15 @@ def render_test(
 
         if savedir is not None:
             os.makedirs(savedir, exist_ok=True)
-            _imwrite(os.path.join(savedir, f"{i:03d}.png"), to8b(rgb))
+            imwrite(os.path.join(savedir, f"{i:03d}.png"), to8b(rgb))
             if ins_rgbs is not None:
                 ins_img = render_label2img(pred_label, ins_rgbs, color_dict, ins_map)
-                _imwrite(os.path.join(savedir, f"instance_{i:03d}.png"), ins_img)
+                imwrite(os.path.join(savedir, f"instance_{i:03d}.png"), ins_img)
                 if gt_labels is not None:
                     gt_ins_img = render_gt_label2img(gt_label, ins_rgbs, color_dict)
-                    _imwrite(os.path.join(savedir, f"{i}_ins_gt.png"), gt_ins_img)
-                    _imwrite(os.path.join(savedir, f"{i}_ins_gt_mask.png"),
-                             gt_label.astype(np.uint8))
+                    imwrite(os.path.join(savedir, f"{i}_ins_gt.png"), gt_ins_img)
+                    imwrite(os.path.join(savedir, f"{i}_ins_gt_mask.png"),
+                            gt_label.astype(np.uint8))
 
     results = {"psnrs": psnrs, "ssims": ssims, "lpipses": lpipses,
                "aps": np.asarray(aps) if aps else None, "full_map": full_map,

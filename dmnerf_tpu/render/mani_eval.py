@@ -27,6 +27,7 @@ from dmnerf_tpu.core.rays import rays_from_K
 from dmnerf_tpu.objfield.metrics import compact_gt_one_hot_np, ins_eval
 from dmnerf_tpu.render.manipulator import deform_ray_offsets, make_manipulator_renderer
 from dmnerf_tpu.tools.visualizer import render_gt_label2img, render_label2img
+from dmnerf_tpu.utils.image_io import imwrite
 from dmnerf_tpu.utils.image_metrics import lpips_np, psnr_np, ssim_np, to8b
 from dmnerf_tpu.utils.metrics_log import write_matching_log, write_test_results
 
@@ -41,12 +42,6 @@ def _make_mani_renderer(cfg, n_targets: int):
 
         return make_sharded_manipulator_renderer(cfg, make_mesh(), n_targets)
     return make_manipulator_renderer(cfg, n_targets)
-
-
-def _imwrite(path, img):
-    import imageio.v2 as imageio
-
-    imageio.imwrite(path, img)
 
 
 def _flat_rays(H, W, K, c2w):
@@ -130,12 +125,12 @@ def manipulator_eval(
             pred_label = np.argmax(ins, axis=-1)
 
         label = np.argmax(ins, axis=-1)
-        _imwrite(os.path.join(save_dir, f"{i}_rgb.png"), to8b(rgb))
-        _imwrite(os.path.join(save_dir, f"{i}_ins.png"),
+        imwrite(os.path.join(save_dir, f"{i}_rgb.png"), to8b(rgb))
+        imwrite(os.path.join(save_dir, f"{i}_ins.png"),
                  render_label2img(label, ins_rgbs, color_dict, ins_map))
         if gt_rgbs is not None:
-            _imwrite(os.path.join(save_dir, f"{i}_rgb_gt.png"), to8b(np.asarray(gt_rgbs[i])))
-            _imwrite(os.path.join(save_dir, f"{i}_ins_gt.png"),
+            imwrite(os.path.join(save_dir, f"{i}_rgb_gt.png"), to8b(np.asarray(gt_rgbs[i])))
+            imwrite(os.path.join(save_dir, f"{i}_ins_gt.png"),
                      render_gt_label2img(np.asarray(gt_labels[i]), ins_rgbs, color_dict))
         print(f"[mani_eval] IMAGE[{i}] TIME: {time.time()-t0:.3f}s")
 
@@ -205,8 +200,8 @@ def manipulator_demo(
         ins = np.asarray(out["ins"]).reshape(H, W, -1)
         label = np.argmax(ins, axis=-1)
 
-        _imwrite(os.path.join(save_dir, f"{i}_rgb.png"), to8b(rgb))
-        _imwrite(os.path.join(save_dir, f"{i}_ins.png"),
+        imwrite(os.path.join(save_dir, f"{i}_rgb.png"), to8b(rgb))
+        imwrite(os.path.join(save_dir, f"{i}_ins.png"),
                  render_label2img(label, ins_rgbs, color_dict, ins_map))
-        _imwrite(os.path.join(save_dir, f"{i}_ins_pred_mask.png"), label.astype(np.uint8))
+        imwrite(os.path.join(save_dir, f"{i}_ins_pred_mask.png"), label.astype(np.uint8))
         print(f"[mani_demo] Image{i}: {time.time()-t0:.3f}s")

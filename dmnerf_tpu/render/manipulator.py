@@ -131,8 +131,8 @@ def manipulate_rays(
     """rgb_stub (default): the pass-1 label-accumulation queries (ori coarse,
     ori fine, target fine) run with rgb_stub_params — their rgb channels are
     never consumed (the 2D label maps read accumulated ins, the exchanged-coarse
-    weights read sigma; reference manipulator.py:137-160), so the rgb branch is
-    dead MXU work inside the Pallas kernel. Output-identical (gated by
+    weights read sigma; reference manipulator.py:137-160), so the rgb branch's
+    matmuls are dropped from those queries. Output-identical (gated by
     tests/test_manipulator_parity.py); the TARGET coarse query stays full
     because its rgb render is returned (tar_rgb, reference manipulator.py:205)."""
     if query_fn is None:

@@ -2,10 +2,10 @@
 
 The reference renders test images with a Python chunk loop, one CUDA launch chain and
 one host sync per chunk (/root/reference/networks/tester.py:62-76, with a shape-changing
-final partial chunk). TPU-first redesign: the H*W rays are padded to a multiple of the
-chunk size and swept with jax.lax.map inside ONE jit — a single static program, no
-retrace for the tail, no per-chunk host round trips. Chunk size = cfg.N_test rays
-(pick so a [chunk, N_samples+N_importance] tile fits VMEM comfortably).
+final partial chunk). Here the H*W rays are padded to a multiple of the chunk size
+and swept with jax.lax.map inside ONE jit — a single static program, no retrace for
+the tail, no per-chunk host round trips. Chunk size = cfg.N_test rays; it bounds the
+live [chunk, N_samples+N_importance, C] activations.
 """
 
 from __future__ import annotations
@@ -38,8 +38,8 @@ def make_image_renderer(cfg: Config, query_fn: Optional[QueryFn] = None,
     sigma_only_coarse (default): the coarse pass exists only to produce
     `sample_pdf` weights (reference tester.py:62-76 discards the coarse render),
     and weights depend on sigma alone — so the coarse query runs with
-    `sigma_stub_params` (trunk + density intact, heads stubbed), cutting ~25% of
-    the coarse MXU work inside the Pallas kernel where XLA DCE cannot reach.
+    `sigma_stub_params` (trunk + density intact, heads stubbed), dropping the head
+    branches' matmuls from the coarse query.
     Output-identical to the full pipeline (gated by
     tests/test_data_and_train.py::test_image_renderer_sigma_only_coarse_equivalent)."""
     if query_fn is None:

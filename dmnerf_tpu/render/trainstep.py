@@ -14,12 +14,12 @@ ScanNet variant: instance supervision applies only to the last N_ins rays of the
 inside the renderer via mutable args.N_ins — here it is a static config constant
 applied in the loss, keeping the renderer shape-stable).
 
-TPU-first design:
+Design:
  * ONE fused jit: render + Hungarian (in-graph) + losses + backward + Adam. The
    reference crossed the host boundary twice per step (data H2D + Hungarian D2H);
-   this step never leaves the chip.
+   this step never leaves the device.
  * donate_argnums on the train state: parameters and optimizer slots are updated
-   in-place in HBM, halving peak memory for the update.
+   in place in device memory, halving peak memory for the update.
  * the LR schedule is a closed-form function of the step counter, traced once.
 """
 
@@ -144,6 +144,28 @@ def compute_losses(
     return total, aux
 
 
+def make_loss_fn(
+    cfg: Config,
+    query_fn: Optional[QueryFn] = None,
+    N_ins: Optional[int] = None,
+):
+    """The train step's objective: loss_fn((params_coarse, params_fine), batch, key)
+    -> (total_loss, aux) for a batch of cfg.N_train rays."""
+    if query_fn is None:
+        query_fn = make_query_fn(cfg)
+    z_coarse_base = z_val_sample(cfg.N_train, cfg.near, cfg.far, cfg.N_samples)
+
+    def loss_fn(params: Tuple[Dict, Dict], batch: Batch, key):
+        pc, pf = params
+        info = render_rays(
+            pc, pf, batch.rays_o, batch.rays_d, z_coarse_base, query_fn,
+            N_importance=cfg.N_importance, perturb=cfg.perturb > 0.0, key=key,
+        )
+        return compute_losses(cfg, info, batch, N_ins)
+
+    return loss_fn
+
+
 def make_train_step(
     cfg: Config,
     query_fn: Optional[QueryFn] = None,
@@ -154,19 +176,8 @@ def make_train_step(
 
     jit=False returns the untraced function so callers (parallel.mesh) can re-jit it
     with explicit mesh shardings."""
-    if query_fn is None:
-        query_fn = make_query_fn(cfg)
     optimizer = make_optimizer(cfg)
-    n_rays = cfg.N_train
-    z_coarse_base = z_val_sample(n_rays, cfg.near, cfg.far, cfg.N_samples)
-
-    def loss_fn(params: Tuple[Dict, Dict], batch: Batch, key):
-        pc, pf = params
-        info = render_rays(
-            pc, pf, batch.rays_o, batch.rays_d, z_coarse_base, query_fn,
-            N_importance=cfg.N_importance, perturb=cfg.perturb > 0.0, key=key,
-        )
-        return compute_losses(cfg, info, batch, N_ins)
+    loss_fn = make_loss_fn(cfg, query_fn, N_ins)
 
     def step_fn(state: TrainState, batch: Batch, key):
         params = (state.params_coarse, state.params_fine)

@@ -16,7 +16,7 @@ Behavioral parity with /root/reference/tools/mesh_generator.py:12-143:
    with z in [0.01, 15] (the reference's hardcoded mesh-ray bounds,
    mesh_generator.py:124), argmax instance -> palette color -> color_mesh.ply.
 
-TPU-first: both the 16.7M-point sigma sweep and the per-vertex ray render run as
+Both the 16.7M-point sigma sweep and the per-vertex ray render run as
 jitted lax.map chunk sweeps on device; with >1 visible device both shard over the
 'data' mesh axis (parallel.mesh.make_sharded_sigma_query /
 make_sharded_image_renderer), like the eval/mani drivers. Everything else is host
@@ -51,14 +51,9 @@ MIN_CLUSTER = 400
 def make_sigma_query(cfg: Config, chunk: int = 65536, samples: int = 64):
     """Batched density query: pts [N, 3] -> sigma [N], one jitted lax.map sweep.
 
-    Rides the platform query path (core.pipeline.make_query_fn): on TPU that is
-    the fused Pallas kernel — in-kernel PE plus `sigma_stub_params` head stubs,
-    sigma exact by per-column matmul independence (XLA DCE cannot prune heads
-    inside a pallas_call; on the XLA path DCE does it and the stub is a no-op
-    cost-wise). Measured ≈parity with the direct XLA sweep on v5e (146 vs
-    150 ms / 256³ grid) — this unifies the query path rather than buying speed;
-    the sweep is trunk-bound either way. Grid points are folded into the
-    query's [rays, samples] shape; view dirs are zero exactly like the
+    Rides the shared query path (core.pipeline.make_query_fn) on
+    `sigma_stub_params`, so the head branches' matmuls drop out of the sweep
+    (core.mlp). Grid points are folded into the query's [rays, samples] shape; view dirs are zero exactly like the
     reference's mesh query (/root/reference/tools/mesh_generator.py)."""
     import jax
     import jax.numpy as jnp

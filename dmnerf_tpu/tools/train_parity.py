@@ -12,15 +12,9 @@ each side evaluated by its own stack (reference networks/evaluator.py ins_eval v
 dmnerf_tpu.objfield.metrics.ins_eval).
 
 CLI:  python -m dmnerf_tpu.tools.train_parity [--iters 2000] [--out PARITY.md]
-      [--query {xla,pallas}] [--vs {reference,xla}] [--geometry {tiny,flagship}]
+      [--geometry {tiny,flagship}]
 Writes a markdown table + parity.json. The pytest harness
 (tests/test_training_parity.py) runs a shortened schedule with tolerances.
-
---query pallas routes the "ours" side through the fused Pallas kernel — the path
-production training actually takes on TPU (compiled on TPU, interpret elsewhere).
---vs xla drops the torch reference and instead compares the two query paths'
-trajectories against each other (the kernel-path training parity, VERDICT r2
-item 4); combine with --geometry flagship on TPU for the committed PARITY run.
 """
 
 from __future__ import annotations
@@ -252,29 +246,11 @@ def _torch_gt_onehot(gt_label, ins_num):
     return compact.float(), valid
 
 
-def make_query(kind: str):
-    """Build the query path under comparison: 'xla' (pure-XLA) or 'pallas' (the
-    fused kernel — compiled on TPU, interpret mode elsewhere so the harness stays
-    runnable on CPU)."""
-    from dmnerf_tpu.core.pipeline import make_xla_query_fn
-
-    if kind == "pallas":
-        import jax
-
-        from dmnerf_tpu.kernels.fused_mlp import make_pallas_query_fn
-
-        interp = jax.default_backend() != "tpu"
-        tile = 16 if interp else 2048
-        return make_pallas_query_fn(MULTIRES, MULTIRES_VIEWS, D, SKIPS,
-                                    tile_fwd=tile, tile_bwd=tile, interpret=interp)
-    return make_xla_query_fn(MULTIRES, MULTIRES_VIEWS, D, SKIPS)
-
-
-def run_ours(init_params_c, init_params_f, scene, batches, record_at,
-             query: str = "xla") -> Dict:
+def run_ours(init_params_c, init_params_f, scene, batches, record_at) -> Dict:
     import jax
     import jax.numpy as jnp
 
+    from dmnerf_tpu.core.pipeline import make_xla_query_fn
     from dmnerf_tpu.objfield.metrics import compact_gt_one_hot_np, ins_eval
     from dmnerf_tpu.render.renderer import make_image_renderer
     from dmnerf_tpu.render.trainstep import (Batch, TrainState, make_optimizer,
@@ -282,7 +258,7 @@ def run_ours(init_params_c, init_params_f, scene, batches, record_at,
     from dmnerf_tpu.utils.image_metrics import psnr_np
 
     cfg = make_config(scene.ins_num)
-    query_fn = make_query(query)
+    query_fn = make_xla_query_fn(MULTIRES, MULTIRES_VIEWS, D, SKIPS)
     step = make_train_step(cfg, query_fn=query_fn)
     opt_state = make_optimizer(cfg).init((init_params_c, init_params_f))
     state = TrainState(jnp.zeros((), jnp.int32), init_params_c, init_params_f, opt_state)
@@ -348,14 +324,13 @@ def _diff_rows(ours: Dict, ref: Dict) -> List[Dict]:
     return rows
 
 
-def run_parity(n_iters: int, record_every: int, tmp_dir: str, seed: int = 0,
-               query: str = "xla") -> Dict:
-    """Ours (--query path) vs the PyTorch reference."""
+def run_parity(n_iters: int, record_every: int, tmp_dir: str, seed: int = 0) -> Dict:
+    """Ours vs the PyTorch reference."""
     scene, params_c, params_f, record_at, batches = _shared_setup(
         n_iters, record_every, tmp_dir, seed)
 
     t0 = time.time()
-    ours = run_ours(params_c, params_f, scene, batches, record_at, query=query)
+    ours = run_ours(params_c, params_f, scene, batches, record_at)
     t_ours = time.time() - t0
     t0 = time.time()
     ref = run_reference(params_c, params_f, scene, batches, record_at)
@@ -364,35 +339,9 @@ def run_parity(n_iters: int, record_every: int, tmp_dir: str, seed: int = 0,
     return {"rows": _diff_rows(ours, ref),
             "eval_ours": ours["eval"], "eval_ref": ref["eval"],
             "wall_ours_s": t_ours, "wall_ref_s": t_ref,
-            "labels": {"ours": f"ours ({query})", "ref": "reference (torch)"},
+            "labels": {"ours": "ours", "ref": "reference (torch)"},
             "schedule": {"iters": n_iters, "N_train": N_TRAIN, "net": f"{D}x{W}",
-                         "samples": [N_SAMPLES, N_IMPORTANCE], "seed": seed,
-                         "query": query}}
-
-
-def run_query_parity(n_iters: int, record_every: int, tmp_dir: str,
-                     seed: int = 0) -> Dict:
-    """Pallas-vs-XLA kernel-path training parity (VERDICT r2 item 4): the SAME
-    framework trained twice from identical init/batches, differing only in the
-    point-query implementation. On TPU this compares the compiled production
-    kernel against the compiled XLA path over a real multi-step trajectory."""
-    scene, params_c, params_f, record_at, batches = _shared_setup(
-        n_iters, record_every, tmp_dir, seed)
-
-    t0 = time.time()
-    pal = run_ours(params_c, params_f, scene, batches, record_at, query="pallas")
-    t_pal = time.time() - t0
-    t0 = time.time()
-    xla = run_ours(params_c, params_f, scene, batches, record_at, query="xla")
-    t_xla = time.time() - t0
-
-    return {"rows": _diff_rows(pal, xla),
-            "eval_ours": pal["eval"], "eval_ref": xla["eval"],
-            "wall_ours_s": t_pal, "wall_ref_s": t_xla,
-            "labels": {"ours": "pallas kernel", "ref": "xla path"},
-            "schedule": {"iters": n_iters, "N_train": N_TRAIN, "net": f"{D}x{W}",
-                         "samples": [N_SAMPLES, N_IMPORTANCE], "seed": seed,
-                         "compare": "pallas-vs-xla"}}
+                         "samples": [N_SAMPLES, N_IMPORTANCE], "seed": seed}}
 
 
 def write_report(res: Dict, out_md: str) -> None:
@@ -440,20 +389,12 @@ def main(argv=None) -> int:
     ap.add_argument("--out", default="PARITY.md")
     ap.add_argument("--json-out", default=None)
     ap.add_argument("--tmp", default="/tmp/dmnerf_parity_scene")
-    ap.add_argument("--query", choices=["xla", "pallas"], default="xla",
-                    help="point-query path for the 'ours' side")
-    ap.add_argument("--vs", choices=["reference", "xla"], default="reference",
-                    help="'reference' = torch reference; 'xla' = pallas-vs-xla "
-                         "kernel-path parity (no torch side)")
     ap.add_argument("--geometry", choices=sorted(GEOMETRIES), default="tiny")
     args = ap.parse_args(argv)
 
     set_geometry(args.geometry)
     os.makedirs(args.tmp, exist_ok=True)
-    if args.vs == "xla":
-        res = run_query_parity(args.iters, args.record_every, args.tmp)
-    else:
-        res = run_parity(args.iters, args.record_every, args.tmp, query=args.query)
+    res = run_parity(args.iters, args.record_every, args.tmp)
     write_report(res, args.out)
     if args.json_out:
         with open(args.json_out, "w") as f:

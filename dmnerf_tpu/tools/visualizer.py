@@ -6,9 +6,9 @@ Behavioral parity with /root/reference/tools/visualizer.py:7-103,196-223:
  * render_gt_label2img: GT labels colored through color_dict directly;
  * ins2img / manipulator_label2img: direct palette coloring (label 0 / 32 = black);
  * render_label2world: the same mapping for per-vertex mesh colors;
- * show_instance_rgb: palette contact sheet (matplotlib, optional).
+ * show_instance_rgb: palette contact sheet (needs matplotlib; not on the main path).
 
-TPU-first note: per-label Python loops in the reference become a single LUT gather.
+Design note: per-label Python loops in the reference become a single LUT gather.
 """
 
 from __future__ import annotations
@@ -74,14 +74,12 @@ def render_label2world(pred_labels: np.ndarray, ins_rgbs: np.ndarray, color_dict
 
 
 def show_instance_rgb(ins_rgbs: np.ndarray, save_path: str) -> None:
-    """Palette contact sheet (reference visualizer.py:106-126); matplotlib-gated."""
-    try:
-        import matplotlib
+    """Palette contact sheet (reference visualizer.py:106-126); needs matplotlib."""
+    import matplotlib
 
-        matplotlib.use("Agg")
-        import matplotlib.pyplot as plt
-    except ImportError:
-        return
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
     n = len(ins_rgbs)
     cols = 4
     rows = max((n + cols - 1) // cols, 1)

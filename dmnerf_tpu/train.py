@@ -6,7 +6,7 @@ config field. The loop reproduces the reference schedule
 (/root/reference/train_dmsr.py:17-110): per-step random-image ray batch, coarse+fine
 render, RGB MSE + Hungarian instance loss (+ optional emptiness penalizer), Adam with
 exponential LR decay, periodic print (i_print), checkpoint (i_save), and in-training
-eval on 10 random test views (i_test). TPU-native additions: proper train RESUME from
+eval on 10 random test views (i_test). Additions: proper train RESUME from
 the latest checkpoint, JSONL metric logging, and mesh-sharded steps when more than one
 device is visible.
 
@@ -137,8 +137,7 @@ def train(cfg: Config, scene: SceneData | None = None) -> None:
 
     enable_persistent_cache()
     # multi-host entry (SURVEY §5 distributed backend): one process per host; the
-    # GSPMD mesh then spans the global device set and gradient psums ride ICI
-    # within a slice / DCN across hosts. Single-host runs skip this entirely.
+    # GSPMD mesh then spans the global device set. Single-host runs skip this.
     if cfg.multihost or os.environ.get("DMNERF_MULTIHOST", "") == "1":
         jax.distributed.initialize()
         print(f"[train] multi-host: process {jax.process_index()}/{jax.process_count()}, "

@@ -1,11 +1,16 @@
-"""Checkpoint / resume via Orbax.
+"""Checkpoint / resume as one numpy ``.npz`` of the flattened train state.
 
 Capability superset of the reference (SURVEY.md §5): the reference only SAVES in
 training (torch.save every i_save steps, /root/reference/train_dmsr.py:80-88) and only
 LOADS in testing (hardcoded-iteration .tar, test_dmsr.py:93-109) — training can never
 resume. Here both directions work for both drivers: {step, params_coarse, params_fine,
 opt_state} round-trips, and ``latest_step`` discovers the newest checkpoint.
-Multi-host-safe: orbax writes from a single controller process.
+
+Format: ``<log_dir>/checkpoints/<step:06d>/state.npz`` holding the TrainState's
+leaves in tree-flatten order (``leaf_<i>``) and the treedef's text (``treedef``).
+Restore rebuilds the state against the caller's template treedef and refuses any
+checkpoint whose structure, shapes or dtypes differ. The state is replicated, so one
+process (process 0) writes it.
 """
 
 from __future__ import annotations
@@ -17,26 +22,32 @@ from typing import Optional
 import jax
 import numpy as np
 
+_FILE = "state.npz"
+
 
 def _ckpt_dir(log_dir: str, step: int) -> str:
     return os.path.join(log_dir, "checkpoints", f"{step:06d}")
 
 
+def _host_array(x) -> np.ndarray:
+    if isinstance(x, jax.Array) and not x.is_fully_addressable:
+        x = x.addressable_data(0)  # replicated state: any local shard is the whole value
+    return np.asarray(x)
+
+
 def save_checkpoint(log_dir: str, state) -> str:
     """state: render.trainstep.TrainState (any pytree of arrays + int step)."""
-    import orbax.checkpoint as ocp
-
-    step = int(state.step)
+    step = int(_host_array(state.step))
     path = os.path.abspath(_ckpt_dir(log_dir, step))
-    ckptr = ocp.StandardCheckpointer()
-    payload = {
-        "step": np.asarray(step),
-        "params_coarse": jax.tree.map(np.asarray, state.params_coarse),
-        "params_fine": jax.tree.map(np.asarray, state.params_fine),
-        "opt_state": jax.tree.map(np.asarray, state.opt_state),
-    }
-    ckptr.save(path, payload, force=True)
-    ckptr.wait_until_finished()
+    if jax.process_index() != 0:
+        return path
+    leaves, treedef = jax.tree_util.tree_flatten(state)
+    os.makedirs(path, exist_ok=True)
+    tmp = os.path.join(path, _FILE + ".tmp")
+    with open(tmp, "wb") as f:
+        np.savez(f, treedef=np.asarray(str(treedef)),
+                 **{f"leaf_{i}": _host_array(x) for i, x in enumerate(leaves)})
+    os.replace(tmp, os.path.join(path, _FILE))
     return path
 
 
@@ -44,7 +55,9 @@ def latest_step(log_dir: str) -> Optional[int]:
     d = os.path.join(log_dir, "checkpoints")
     if not os.path.isdir(d):
         return None
-    steps = [int(m.group(1)) for f in os.listdir(d) if (m := re.fullmatch(r"(\d+)", f))]
+    # only complete checkpoints count: save_checkpoint renames state.npz into place last
+    steps = [int(m.group(1)) for f in os.listdir(d) if (m := re.fullmatch(r"(\d+)", f))
+             and os.path.isfile(os.path.join(d, f, _FILE))]
     return max(steps) if steps else None
 
 
@@ -62,9 +75,14 @@ def resolve_ckpt_path(ft_path: str):
     p = os.path.normpath(ft_path)
     base = os.path.basename(p)
     if re.fullmatch(r"\d+", base) and os.path.basename(os.path.dirname(p)) == "checkpoints":
-        if not os.path.isdir(p):
-            raise FileNotFoundError(f"ft_path names checkpoint step {int(base)} but {p} does not exist")
-        return os.path.dirname(os.path.dirname(p)), int(base)
+        # checkpoints/7 and checkpoints/000007 name the same step: resolve through
+        # the writer's own padded name
+        log_dir, step = os.path.dirname(os.path.dirname(p)), int(base)
+        if not os.path.isdir(_ckpt_dir(log_dir, step)):
+            raise FileNotFoundError(
+                f"ft_path names checkpoint step {step} but {_ckpt_dir(log_dir, step)} "
+                f"does not exist")
+        return log_dir, step
     if base == "checkpoints":
         log_dir = os.path.dirname(p)
     else:
@@ -97,38 +115,36 @@ def restore_from_path(ft_path: str, template_state):
 def restore_checkpoint(log_dir: str, template_state, step: Optional[int] = None):
     """Returns a TrainState with the checkpoint contents, or None if absent.
     template_state provides the pytree structure/dtypes (from create_train_state)."""
-    import orbax.checkpoint as ocp
-
     if step is None:
         step = latest_step(log_dir)
         if step is None:
             return None
-    path = os.path.abspath(_ckpt_dir(log_dir, step))
-    if not os.path.isdir(path):
+    path = os.path.join(os.path.abspath(_ckpt_dir(log_dir, step)), _FILE)
+    if not os.path.isfile(path):
         return None
-    ckptr = ocp.StandardCheckpointer()
-    template = {
-        "step": np.asarray(0),
-        "params_coarse": jax.tree.map(np.asarray, template_state.params_coarse),
-        "params_fine": jax.tree.map(np.asarray, template_state.params_fine),
-        "opt_state": jax.tree.map(np.asarray, template_state.opt_state),
-    }
-    try:
-        payload = ckptr.restore(path, template)
-    except Exception as e:  # orbax's structure-diff formatter itself can throw opaquely
+    leaves, treedef = jax.tree_util.tree_flatten(template_state)
+    with np.load(path) as z:
+        saved_treedef = str(z["treedef"])
+        saved = [z[f"leaf_{i}"] for i in range(len([k for k in z.files
+                                                      if k.startswith("leaf_")]))]
+    problems = []
+    if saved_treedef != str(treedef):
+        problems.append(f"tree structure differs:\n  checkpoint: {saved_treedef}\n"
+                        f"  model:      {treedef}")
+    elif len(saved) != len(leaves):
+        problems.append(f"{len(saved)} leaves in the checkpoint, {len(leaves)} in the model")
+    else:
+        for i, (a, t) in enumerate(zip(saved, leaves)):
+            if a.shape != np.shape(t) or a.dtype != np.asarray(t).dtype:
+                problems.append(f"leaf {i}: checkpoint {a.dtype}{list(a.shape)} vs model "
+                                f"{np.asarray(t).dtype}{list(np.shape(t))}")
+    if problems:
         raise ValueError(
             f"Checkpoint at {path} is incompatible with the current model/optimizer "
             f"structure (e.g. it was written with different netdepth/netwidth/ins_num). "
             f"Delete the stale checkpoints or point basedir/expname at a fresh run dir. "
-            f"Original error: {type(e).__name__}: {e}"
-        ) from e
+            + "; ".join(problems[:4])
+        )
     import jax.numpy as jnp
 
-    from dmnerf_tpu.render.trainstep import TrainState
-
-    return TrainState(
-        step=jnp.asarray(payload["step"], jnp.int32),
-        params_coarse=jax.tree.map(jnp.asarray, payload["params_coarse"]),
-        params_fine=jax.tree.map(jnp.asarray, payload["params_fine"]),
-        opt_state=jax.tree.map(jnp.asarray, payload["opt_state"]),
-    )
+    return jax.tree_util.tree_unflatten(treedef, [jnp.asarray(a) for a in saved])

@@ -24,9 +24,9 @@ import jax  # noqa: E402
 import numpy as np  # noqa: E402
 
 jax.config.update("jax_default_matmul_precision", "highest")
-cache = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), ".jax_cache")
-jax.config.update("jax_compilation_cache_dir", cache)
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+from dmnerf_tpu.utils.cache import enable_persistent_cache  # noqa: E402
+
+enable_persistent_cache()
 
 jax.distributed.initialize(coordinator_address=coord, num_processes=nprocs,
                            process_id=proc_id)

@@ -49,7 +49,6 @@ def env(tmp_path_factory):
         dataset_type="dmsr", N_samples=8, N_importance=8, N_train=64, N_test=256,
         near=1.0, far=8.0, netdepth=2, netwidth=32, multires=4, multires_views=2,
         ins_num=INS, testskip=1, views=2, mesh_grid_dim=20, mesh_level=0.1,
-        use_pallas=False,
     )
     state = create_train_state(cfg, jax.random.PRNGKey(0))
     save_checkpoint(cfg.log_dir, state)

@@ -114,8 +114,7 @@ def test_manipulate_rays_matches_reference(monkeypatch, setup_model):
 
     cfg = Config(netdepth=trp.D, netwidth=trp.W, multires=trp.MULTIRES,
                  multires_views=trp.MULTIRES_VIEWS, skips=trp.SKIPS,
-                 N_samples=9, N_importance=8, near=2.0, far=6.0, ins_num=INS,
-                 use_pallas=False)
+                 N_samples=9, N_importance=8, near=2.0, far=6.0, ins_num=INS)
     q = make_xla_query_fn(trp.MULTIRES, trp.MULTIRES_VIEWS, trp.D, trp.SKIPS)
     out = manipulate_rays(cfg, params, params,
                           (jnp.asarray(rays_o), jnp.asarray(rays_d)),
@@ -163,8 +162,7 @@ def test_manipulate_rays_rgb_stub_equivalent(setup_model):
 
     cfg = Config(netdepth=trp.D, netwidth=trp.W, multires=trp.MULTIRES,
                  multires_views=trp.MULTIRES_VIEWS, skips=trp.SKIPS,
-                 N_samples=9, N_importance=8, near=2.0, far=6.0, ins_num=INS,
-                 use_pallas=False)
+                 N_samples=9, N_importance=8, near=2.0, far=6.0, ins_num=INS)
     q = make_xla_query_fn(trp.MULTIRES, trp.MULTIRES_VIEWS, trp.D, trp.SKIPS)
     import jax
 
